@@ -1,6 +1,10 @@
-"""Large-scene benchmark: a ~500k-triangle Suzanne field through the chunked
-packet-kernel path (VERDICT r1 #7 target: within 3x of the demo scene's
-Mrays/s)."""
+"""Large-scene run: a ~500k-triangle Suzanne field (or two dense Suzannes)
+through the default path, as one tree or as chunked trees.
+
+Usage: python scripts/bench_large.py [instances] [single|chunked] [chunk_tris] [+mesh]
+
+The image is gated against the XLA walk's at reduced size before any time is
+printed; the last line of standard output is the Mrays/s."""
 
 import math
 import os
@@ -14,19 +18,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from rayzen_tpu.bigscene import partition_scene, render_radiance_chunked
-from rayzen_tpu.cache import setup_compile_cache
-from rayzen_tpu.camera import Camera
-from rayzen_tpu.config import RenderConfig
-from rayzen_tpu.demo import ASSET_DIR
-from rayzen_tpu.light import Light
-from rayzen_tpu.material import Material
-from rayzen_tpu.mesh import Mesh
-from rayzen_tpu.packing import pack_scene
-from rayzen_tpu.scene import GameObject, Scene
-from rayzen_tpu.transforms import rotation, translation
+from rayzen.bigscene import partition_scene, render_radiance_chunked
+from rayzen.cache import setup_compile_cache
+from rayzen.camera import Camera
+from rayzen.config import RenderConfig
+from rayzen.demo import ASSET_DIR
+from rayzen.light import Light
+from rayzen.material import Material
+from rayzen.mesh import Mesh
+from rayzen.packing import pack_scene
+from rayzen.scene import GameObject, Scene
+from rayzen.transforms import rotation, translation
 
-setup_compile_cache(".rayzen_cache/xla")
+setup_compile_cache()
 
 N_INSTANCES = int(sys.argv[1]) if len(sys.argv) > 1 else 520  # x968 tris
 # RAYZEN_LARGE_* envs shrink the run for CPU smoke tests (defaults = the
@@ -35,7 +39,7 @@ W = int(os.environ.get("RAYZEN_LARGE_W", "1920"))
 H = int(os.environ.get("RAYZEN_LARGE_H", "1080"))
 SPP = int(os.environ.get("RAYZEN_LARGE_SPP", "4"))
 
-mode_argv = sys.argv[2] if len(sys.argv) > 2 else "tiered"
+mode_argv = sys.argv[2] if len(sys.argv) > 2 else "single"
 variant_argv = sys.argv[4] if len(sys.argv) > 4 else ""
 
 monkey = Mesh.load_from_obj(os.path.join(ASSET_DIR, "monkey.obj"), 0)
@@ -45,7 +49,7 @@ if "+mesh" in variant_argv:
     # different coherence class: screen tiles see one smooth surface region,
     # not dozens of far-apart instances — the shape real high-poly assets
     # have. The field stays as the adversarial many-instance case.
-    from rayzen_tpu.procedural import subdivide
+    from rayzen.procedural import subdivide
 
     levels = max(1, round(math.log(max(N_INSTANCES, 16) / 968, 4)))
     dense = subdivide(monkey, levels, displace=0.01)
@@ -105,84 +109,28 @@ kind = "dense mesh x2" if "+mesh" in variant_argv else f"{N_INSTANCES} Suzannes"
 print(f"# {kind}: {total_tris} world triangles", file=sys.stderr)
 
 cam = {k: jnp.asarray(v) for k, v in scene.camera.device_params().items()}
-mode = mode_argv  # tiered | chunked
-TRE_ROWS = int(sys.argv[3]) if len(sys.argv) > 3 else 64
-# extra config variants, e.g. "+oct" (octant bounce walks), "+f4" (sample
-# fusion), "+rebin", "+mesh" (dense-surface scene) — applied to the config
-variant = variant_argv
-
-
-def apply_variant(cfg):
-    if "+oct" in variant:
-        cfg = cfg.replace(octant_bounce_walks=True)
-    if "+rebin" in variant:
-        cfg = cfg.replace(bounce_rebin=True)
-    if "+fr" in variant:
-        cfg = cfg.replace(frustum_primary=True)
-    if "+p4" in variant:
-        cfg = cfg.replace(walk_pop=4)
-    elif "+p2" in variant:
-        cfg = cfg.replace(walk_pop=2)
-    if "+p1" in variant:
-        cfg = cfg.replace(walk_pop=1)  # disable the auto multi-pop
-    if "+f" in variant:
-        fv = variant.partition("+f")[2].split("+")[0]
-        if fv.isdigit():
-            cfg = cfg.replace(sample_fuse=int(fv))
-    if "+s" in variant:
-        # "+s1o" split-bounce at 1, octant-bucketed; "+s2" rank order;
-        # trailing "e" re-compacts before every late bounce ("+s1oe")
-        sv = variant.partition("+s")[2].split("+")[0]
-        digits = ""
-        while sv and sv[0].isdigit():
-            digits, sv = digits + sv[0], sv[1:]
-        if digits:
-            cfg = cfg.replace(split_bounce=int(digits))
-            if sv[:1] == "o":
-                cfg = cfg.replace(split_rebin="octant")
-                sv = sv[1:]
-            if sv[:1] == "c":
-                cfg = cfg.replace(split_rebin="octcell")
-                sv = sv[1:]
-            if sv[:1] == "e":
-                cfg = cfg.replace(split_every=True)
-    return cfg
-
+mode = mode_argv  # single | chunked
+CHUNK_TRIS = int(sys.argv[3]) if len(sys.argv) > 3 and sys.argv[3] else 250_000
+cfg = RenderConfig(width=W, height=H, spp=SPP, max_bounces=5)
 
 if mode == "chunked":
-    cfg = RenderConfig(width=W, height=H, spp=SPP, max_bounces=5, tiered="off")
-    cfg = apply_variant(cfg)
-    chunks = partition_scene(scene)
+    chunks = partition_scene(scene, CHUNK_TRIS)
     arrays_in = tuple(pack_scene(c, cfg) for c in chunks)
     fn = jax.jit(
         lambda al, c: render_radiance_chunked(al, c, cfg, with_stats=True)
     )
-    detail = f"{len(chunks)} chunks"
+    detail = f"{len(chunks)} chunks of <= {CHUNK_TRIS} triangles"
 else:
-    from rayzen_tpu.integrator import render_radiance_with_stats
+    from rayzen.integrator import render_radiance_with_stats
 
-    cfg = RenderConfig(width=W, height=H, spp=SPP, max_bounces=5,
-                       treelet_rows=TRE_ROWS)
-    cfg = apply_variant(cfg)
-    arrays_in = pack_scene(scene, cfg)  # tiered view auto-built at this size
+    arrays_in = pack_scene(scene, cfg)
     fn = jax.jit(lambda a, c: render_radiance_with_stats(a, c, cfg))
-    if int(arrays_in.tre_child_node.shape[1]) > 1:
-        detail = (
-            f"tiered: {arrays_in.tre_child_node.shape[0]} treelets x "
-            f"{arrays_in.tre_child_node.shape[1]} rows, "
-            f"top {arrays_in.top_child_node.shape[0]} rows"
-        )
-    else:  # RAYZEN_TREE_BUDGET_MB raised past the table size -> single tree
-        detail = (
-            f"single tree: {arrays_in.bvh2_child_node.shape[0]} inner rows "
-            "VMEM-resident"
-        )
+    detail = f"one tree: {arrays_in.uni_meta.shape[0]} nodes"
 
-# ---- correctness gate (round-2 verdict weak #2): the benched path must
-# reproduce the portable XLA walk's image at reduced size before any number
-# is printed — a fast wrong image must never produce a benchmark result.
-from rayzen_tpu.image_io import ssim
-from rayzen_tpu.integrator import render_radiance
+# ---- correctness gate: the timed path must reproduce the XLA walk's image
+# at reduced size before any number is printed.
+from rayzen.image_io import ssim
+from rayzen.integrator import render_radiance
 
 GW = int(os.environ.get("RAYZEN_LARGE_GATE_W", "320"))
 GH = int(os.environ.get("RAYZEN_LARGE_GATE_H", "180"))
@@ -192,10 +140,10 @@ gate_scene = Scene(camera=Camera(
     game_objects=scene.game_objects)
 gcam = {k: jnp.asarray(v) for k, v in gate_scene.camera.device_params().items()}
 gate_cfg = cfg.replace(width=GW, height=GH, spp=1)
-xla_cfg = gate_cfg.replace(kernels="xla", tiered="off")
+xla_cfg = gate_cfg.replace(kernels="xla")
 t0 = time.perf_counter()
-# the XLA oracle render takes ~10 min at this scene size — cache it on disk
-# keyed by scene content + gate geometry (the oracle itself never changes)
+# the XLA oracle render is slow at this scene size — cache it on disk keyed
+# by scene content + gate geometry (the oracle itself never changes)
 import hashlib
 
 tf_hash = hashlib.sha256(gate_scene.transforms().tobytes()).hexdigest()[:8]
@@ -214,7 +162,7 @@ else:
     np.savez_compressed(oracle_path, image=oracle.astype(np.float16))
 if mode == "chunked":
     gate_chunks = tuple(
-        pack_scene(c, gate_cfg) for c in partition_scene(gate_scene)
+        pack_scene(c, gate_cfg) for c in partition_scene(gate_scene, CHUNK_TRIS)
     )
     gate_img = np.asarray(
         render_radiance_chunked(gate_chunks, gcam, gate_cfg)
@@ -237,16 +185,17 @@ np.asarray(img)
 print(f"# compile+first: {time.perf_counter() - t0:.1f} s, {detail}",
       file=sys.stderr)
 
-best = float("inf")
-for _ in range(int(os.environ.get("RAYZEN_LARGE_REPS", "4"))):
+times = []
+for _ in range(int(os.environ.get("RAYZEN_LARGE_REPS", "5"))):
     t0 = time.perf_counter()
-    img, rays = fn(arrays_in, cam)
-    np.asarray(img)
-    best = min(best, time.perf_counter() - t0)
-mrays = int(rays) / best / 1e6
-print(f"# {total_tris} tris [{mode}]: {best / SPP * 1e3:.1f} ms/sample, "
-      f"{mrays:.1f} Mrays/s sustained (min of 4)", file=sys.stderr)
-from rayzen_tpu.image_io import write_png
+    img, rays = jax.block_until_ready(fn(arrays_in, cam))
+    times.append(time.perf_counter() - t0)
+med = float(np.median(times))
+mrays = int(rays) / med / 1e6
+print(f"# {total_tris} tris [{mode}] on {jax.devices()[0].device_kind}: "
+      f"{med / SPP * 1e3:.1f} ms/sample, {mrays:.1f} Mrays/s (median of "
+      f"{len(times)} synced dispatches)", file=sys.stderr)
+from rayzen.image_io import write_png
 
 write_png("field.png", np.asarray(img))
 print(f"{mrays:.2f}")

@@ -1,8 +1,8 @@
 """Deforming-geometry demo: an animated wave surface with two Suzannes,
 topology rebuilt ON DEVICE (LBVH) inside the render jit every frame.
 
-Writes wave_0000.png ... wave_NNNN.png. Run on TPU (default backend) or CPU
-(JAX_PLATFORMS=cpu, keep the resolution small).
+Writes wave_0000.png ... wave_NNNN.png. Run on the GPU (default backend) or
+the CPU (JAX_PLATFORMS=cpu, keep the resolution small).
 
 Usage: python scripts/deform_demo.py [frames] [width] [height]
 """
@@ -18,21 +18,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from rayzen_tpu.cache import setup_compile_cache
-from rayzen_tpu.camera import Camera
-from rayzen_tpu.config import RenderConfig
-from rayzen_tpu.deform import render_deforming
-from rayzen_tpu.demo import default_obj_dir
-from rayzen_tpu.image_io import write_png
-from rayzen_tpu.light import Light, pack_lights
-from rayzen_tpu.material import Material, pack_materials
-from rayzen_tpu.mesh import Mesh
+from rayzen.cache import setup_compile_cache
+from rayzen.camera import Camera
+from rayzen.config import RenderConfig
+from rayzen.deform import render_deforming
+from rayzen.demo import default_obj_dir
+from rayzen.image_io import write_png
+from rayzen.light import Light, pack_lights
+from rayzen.material import Material, pack_materials
+from rayzen.mesh import Mesh
 
 FRAMES = int(sys.argv[1]) if len(sys.argv) > 1 else 8
 W = int(sys.argv[2]) if len(sys.argv) > 2 else 640
 H = int(sys.argv[3]) if len(sys.argv) > 3 else 360
 
-setup_compile_cache(".rayzen_cache/xla")
+setup_compile_cache()
 
 
 def base_geometry():

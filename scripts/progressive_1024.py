@@ -9,7 +9,7 @@ Monte-Carlo estimator averaging n samples the error variance decays as 1/n;
 the recorded table lets the doc assert that slope.
 
 Usage: python scripts/progressive_1024.py [out.md]
-Writes docs/PROGRESSIVE_1024.md (table + PNG) by default.
+Writes progressive_1024.md (table + PNG) in the working directory by default.
 """
 
 import os
@@ -20,14 +20,13 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from rayzen_tpu.config import RenderConfig
-from rayzen_tpu.demo import build_demo_scene
-from rayzen_tpu.image_io import write_png
-from rayzen_tpu.renderer import Renderer
+from rayzen.config import RenderConfig
+from rayzen.demo import build_demo_scene
+from rayzen.image_io import write_png
+from rayzen.renderer import Renderer
 
-OUT = sys.argv[1] if len(sys.argv) > 1 else "docs/PROGRESSIVE_1024.md"
-# env knobs exist so the whole script is CPU-smokeable end to end before a
-# chip window is spent on it (VERDICT r4 weak #3 / next #2)
+OUT = sys.argv[1] if len(sys.argv) > 1 else "progressive_1024.md"
+# env knobs exist so the whole script is CPU-smokeable end to end
 W = int(os.environ.get("PROG_W", 800))  # reference native res (main.cpp:35-36)
 H = int(os.environ.get("PROG_H", 600))
 SPP_PER_FRAME = int(os.environ.get("PROG_SPP", 64))  # in-kernel per dispatch

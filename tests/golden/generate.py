@@ -20,10 +20,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
 import jax.numpy as jnp  # noqa: E402
 
-from rayzen_tpu import RenderConfig, pack_scene  # noqa: E402
-from rayzen_tpu.demo import build_demo_scene  # noqa: E402
-from rayzen_tpu.integrator import render_rays  # noqa: E402
-from rayzen_tpu.ops import camera_rays  # noqa: E402
+from rayzen import RenderConfig, pack_scene  # noqa: E402
+from rayzen.demo import build_demo_scene  # noqa: E402
+from rayzen.integrator import render_rays  # noqa: E402
+from rayzen.ops import camera_rays  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 

@@ -5,16 +5,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rayzen_tpu.bigscene import (
+from rayzen.bigscene import (
     merge_hits,
     partition_scene,
     render_radiance_chunked,
     split_mesh,
 )
-from rayzen_tpu.config import RenderConfig
-from rayzen_tpu.demo import build_small_scene
-from rayzen_tpu.integrator import render_radiance
-from rayzen_tpu.packing import pack_scene
+from rayzen.config import RenderConfig
+from rayzen.demo import build_small_scene
+from rayzen.integrator import render_radiance
+from rayzen.packing import pack_scene
 
 
 @pytest.fixture(scope="module")
@@ -66,8 +66,9 @@ class TestChunkedRender:
         assert np.abs(single - chunked).max() < 1e-4
 
     def test_pallas_chunked(self, scene):
-        # the deployment path: packet kernels per chunk (interpret on CPU)
-        cfg = RenderConfig(width=32, height=24, spp=1, max_bounces=2)
+        # the GPU path: the Pallas walk per chunk (interpret on CPU)
+        cfg = RenderConfig(width=32, height=24, spp=1, max_bounces=2,
+                           kernels="walk")
         cam = {k: jnp.asarray(v) for k, v in scene.camera.device_params().items()}
         chunks = partition_scene(scene, max_tris=max(scene.num_triangles // 2, 2))
         arrays_list = [pack_scene(c, cfg) for c in chunks]
@@ -84,9 +85,9 @@ class TestChunkedRender:
 
 class TestMergeHits:
     def test_merge_prefers_closer(self, scene):
-        from rayzen_tpu.ops.traverse import traverse_world
-        from rayzen_tpu.packing import world_geometry
-        from rayzen_tpu.ops.camera_rays import generate_rays, pixel_grid
+        from rayzen.ops.traverse import traverse_world
+        from rayzen.packing import world_geometry
+        from rayzen.ops.camera_rays import generate_rays, pixel_grid
 
         cfg = RenderConfig(width=16, height=12)
         cam = {k: jnp.asarray(v) for k, v in scene.camera.device_params().items()}

@@ -5,18 +5,18 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rayzen_tpu.accel.builder import (
+from rayzen.accel.builder import (
     brute_force_closest_hit,
     build_blas,
     build_tlas,
     compute_miss_links,
 )
-from rayzen_tpu import procedural
-from rayzen_tpu.config import RenderConfig
-from rayzen_tpu.mesh import Mesh
-from rayzen_tpu.packing import pack_scene
-from rayzen_tpu.scene import GameObject, Scene
-from rayzen_tpu.ops.traverse import traverse_blas, traverse_scene, brute_force_scene
+from rayzen import procedural
+from rayzen.config import RenderConfig
+from rayzen.mesh import Mesh
+from rayzen.packing import pack_scene
+from rayzen.scene import GameObject, Scene
+from rayzen.ops.traverse import traverse_blas, traverse_scene, brute_force_scene
 
 from conftest import random_rays
 
@@ -158,8 +158,8 @@ class TestTraversalVsBruteForce:
     def test_mirrored_instance_normal_orientation(self):
         # a mirrored (det<0) instance must produce the same normal as the
         # reference's inverse-transpose rule (glsl:489-490)
-        from rayzen_tpu.ops.traverse import hit_shading_data
-        from rayzen_tpu.packing import world_geometry
+        from rayzen.ops.traverse import hit_shading_data
+        from rayzen.packing import world_geometry
 
         mesh = procedural.cube(0)
         for sx in (1.0, -1.0):

@@ -15,12 +15,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rayzen_tpu.bigscene import partition_scene, render_radiance_chunked
-from rayzen_tpu.config import RenderConfig
-from rayzen_tpu.demo import build_small_scene
-from rayzen_tpu.packing import pack_scene
-from rayzen_tpu.picking import pick, pick_chunks
-from rayzen_tpu.renderer import Renderer
+from rayzen.bigscene import partition_scene, render_radiance_chunked
+from rayzen.config import RenderConfig
+from rayzen.demo import build_small_scene
+from rayzen.packing import pack_scene
+from rayzen.picking import pick, pick_chunks
+from rayzen.renderer import Renderer
 
 
 W, H = 32, 24
@@ -28,11 +28,11 @@ W, H = 32, 24
 
 def chunked_cfg(**kw):
     # a chunk budget below the small scene's 184 triangles forces the chunked
-    # path (tiered off, 2 chunks) at test size
+    # path (2 chunks) at test size
     kw.setdefault("auto_refresh_drift", 0.0)
     kw.setdefault("chunk_tris", 92)
     return RenderConfig(
-        width=W, height=H, spp=1, max_bounces=2, tiered="off", **kw
+        width=W, height=H, spp=1, max_bounces=2, **kw
     )
 
 
@@ -44,6 +44,13 @@ def norender_renderer():
                  use_cache=False)
     assert r.arrays_list is not None and len(r.arrays_list) >= 2
     return r
+
+
+def test_one_tree_unless_chunk_tris_is_set():
+    scene = build_small_scene(W, H)
+    r = Renderer(scene, chunked_cfg(chunk_tris=0), async_compile="lazy",
+                 use_cache=False)
+    assert r.arrays_list is None
 
 
 class TestChunkedKeying:
@@ -63,7 +70,7 @@ class TestChunkedKeying:
                                                   rng_key=1))
         assert not np.allclose(img0, img1)
         # key 0 still reproduces the single-tree reference sequence
-        from rayzen_tpu.integrator import render_radiance
+        from rayzen.integrator import render_radiance
 
         xcfg = cfg.replace(kernels="xla")
         single = np.asarray(

@@ -3,7 +3,7 @@ configs must produce no NaNs anywhere in the compiled programs — JAX re-runs
 op-by-op and raises on the first NaN-producing primitive.
 
 The traversal paths use huge-but-finite direction reciprocals
-(traverse._safe_inv_dir, pallas_traverse._safe_inv) precisely so axis-parallel
+(traverse._safe_inv_dir, and the same rule inside ops/walk.py) so axis-parallel
 rays never manufacture 0 * inf NaNs."""
 
 import contextlib
@@ -12,11 +12,11 @@ import numpy as np
 import jax
 import pytest
 
-from rayzen_tpu.config import RenderConfig
-from rayzen_tpu.demo import build_small_scene
-from rayzen_tpu.integrator import render_radiance
-from rayzen_tpu.packing import pack_scene
-from rayzen_tpu.preview import render_preview
+from rayzen.config import RenderConfig
+from rayzen.demo import build_small_scene
+from rayzen.integrator import render_radiance
+from rayzen.packing import pack_scene
+from rayzen.preview import render_preview
 
 
 @contextlib.contextmanager
@@ -48,11 +48,11 @@ class TestDebugNans:
             )
         assert np.isfinite(img).all()
 
-    def test_megakernel_path_clean(self, setup):
+    def test_walk_path_clean(self, setup):
         cfg, arrays, cam = setup
         with debug_nans():
             img = np.asarray(
-                render_radiance(arrays, cam, cfg.replace(kernels="pallas"))
+                render_radiance(arrays, cam, cfg.replace(kernels="walk"))
             )
         assert np.isfinite(img).all()
 
@@ -65,8 +65,8 @@ class TestDebugNans:
     def test_axis_parallel_rays_clean(self, setup):
         # the historical NaN trap: axis-aligned rays starting exactly on node
         # bound planes (0 * inf in the slab test)
-        from rayzen_tpu.ops.traverse import shadow_walk, traverse_world
-        from rayzen_tpu.packing import world_geometry
+        from rayzen.ops.traverse import shadow_walk, traverse_world
+        from rayzen.packing import world_geometry
 
         cfg, arrays, cam = setup
         ws = world_geometry(arrays)

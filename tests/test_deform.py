@@ -1,18 +1,18 @@
 """Deforming geometry through the on-device LBVH, end to end (VERDICT r1 #9):
-topology rebuilt in-jit each frame, traced by both the XLA walk and the
-packet/megakernel path."""
+topology rebuilt in-jit each frame, traced by both the XLA walk and the GPU's
+Pallas walk (interpret mode on the CPU)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from rayzen_tpu.config import RenderConfig
-from rayzen_tpu.deform import render_deforming, world_from_deforming
-from rayzen_tpu.light import Light, pack_lights
-from rayzen_tpu.material import Material, pack_materials
-from rayzen_tpu.ops.traverse import brute_force_world, traverse_world
-from rayzen_tpu.camera import Camera
+from rayzen.config import RenderConfig
+from rayzen.deform import render_deforming, world_from_deforming
+from rayzen.light import Light, pack_lights
+from rayzen.material import Material, pack_materials
+from rayzen.ops.traverse import brute_force_world, traverse_world
+from rayzen.camera import Camera
 
 
 def wavy_grid(g: int, t: float) -> np.ndarray:
@@ -66,7 +66,7 @@ class TestDeformTables:
                            rtol=1e-5)
 
     def test_pallas_kernels_on_deform_tables(self, tables):
-        from rayzen_tpu.ops.pallas_traverse import pallas_closest_hit_bvh2
+        from rayzen.ops import walk
 
         verts, tri_mat, mats, lights = tables
         ws = world_from_deforming(verts, tri_mat, mats, lights)
@@ -77,7 +77,7 @@ class TestDeformTables:
         d = d / jnp.linalg.norm(d, axis=1, keepdims=True)
         act = jnp.ones(128, bool)
         ref = traverse_world(ws, o, d, act)
-        pal = pallas_closest_hit_bvh2(ws, o, d, act, interpret=True)
+        pal = walk.closest_hit(ws, o, d, act, interpret=True)
         np.testing.assert_array_equal(
             np.asarray(ref.tri), np.asarray(pal.tri)
         )
@@ -106,7 +106,7 @@ class TestAnimatedSequence:
         assert not np.allclose(frames[0], frames[1])
         assert not np.allclose(frames[1], frames[2])
 
-    def test_megakernel_matches_xla(self, tables):
+    def test_walk_matches_xla(self, tables):
         verts, tri_mat, mats, lights = tables
         cfg = RenderConfig(width=32, height=24, spp=1, max_bounces=2)
         cam = Camera(position=np.array([0.0, 1.5, 2.5], np.float32),
@@ -117,17 +117,17 @@ class TestAnimatedSequence:
             render_deforming(verts, tri_mat, mats, lights, cam_p,
                              cfg.replace(kernels="xla"))
         )
-        mega = np.asarray(
-            render_deforming(verts, tri_mat, mats, lights, cam_p, cfg)
+        got = np.asarray(
+            render_deforming(verts, tri_mat, mats, lights, cam_p,
+                             cfg.replace(kernels="walk"))
         )
-        assert np.abs(xla - mega).max() < 1e-4
+        assert np.abs(xla - got).max() < 1e-4
 
 
 class TestDeformKeying:
     def test_keyed_backend_parity(self, tables):
-        """ADVICE r2 (low): kernels="xla" and the megakernel must draw the
-        same keyed sample sequence — the XLA branch previously skipped the
-        rng_key offset its megakernel twin applies."""
+        """kernels="xla" and the walk must draw the same keyed sample
+        sequence (one shared sample loop, integrator.render_world)."""
         verts, tri_mat, mats, lights = tables
         cfg = RenderConfig(width=32, height=24, spp=1, max_bounces=2)
         cam = Camera(position=np.array([0.0, 1.5, 2.5], np.float32),
@@ -138,11 +138,11 @@ class TestDeformKeying:
             render_deforming(verts, tri_mat, mats, lights, cam_p,
                              cfg.replace(kernels="xla"), rng_key=3)
         )
-        mega = np.asarray(
-            render_deforming(verts, tri_mat, mats, lights, cam_p, cfg,
-                             rng_key=3)
+        got = np.asarray(
+            render_deforming(verts, tri_mat, mats, lights, cam_p,
+                             cfg.replace(kernels="walk"), rng_key=3)
         )
-        assert np.abs(xla - mega).max() < 1e-4
+        assert np.abs(xla - got).max() < 1e-4
         # and keying actually changes the image
         xla0 = np.asarray(
             render_deforming(verts, tri_mat, mats, lights, cam_p,

@@ -1,5 +1,5 @@
 """Golden-image regression on the REAL reference demo geometry (cube.obj +
-Suzanne, assets/meshes): every kernel family must keep rendering the same image
+Suzanne, assets/meshes): every traversal walk must keep rendering the same image
 (SSIM >= 0.98; BASELINE.md acceptance style). Goldens come from the chunked
 brute-force oracle (tests/golden/generate.py) — the ground truth the reference
 never shipped (SURVEY.md §4). demo_reference_800x600.npz is the parity anchor
@@ -11,10 +11,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rayzen_tpu import RenderConfig, pack_scene
-from rayzen_tpu.demo import build_demo_scene, default_obj_dir
-from rayzen_tpu.image_io import ssim
-from rayzen_tpu.integrator import render_radiance
+from rayzen import RenderConfig, pack_scene
+from rayzen.demo import build_demo_scene, default_obj_dir
+from rayzen.image_io import ssim
+from rayzen.integrator import render_radiance
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -52,10 +52,9 @@ def test_demo_matches_golden_xla_256():
     assert np.abs(img - golden).mean() < 5e-3
 
 
-@pytest.mark.parametrize("kernels", ["pallas-bvh2", "pallas-ml", "pallas"])
+@pytest.mark.parametrize("kernels", ["walk", "xla"])
 def test_demo_matches_golden_pallas_96(kernels):
-    # all three Pallas kernel families (interpret mode on CPU), incl. the
-    # hybrid default ("pallas" -> frustum primary + bvh2 bounces)
+    # the GPU's Pallas walk (interpret mode on CPU) and the XLA walk
     golden = _golden("demo_96x64.npz")
     img = _render(96, 64, kernels)
     s = ssim(img, golden)
@@ -69,8 +68,8 @@ def test_parity_anchor_800x600():
     == bvh equality is separately asserted at 96x64/256x192, so this pins the
     full-resolution image against regressions in raygen, traversal, shading,
     and RNG alike."""
-    from rayzen_tpu.integrator import render_rays
-    from rayzen_tpu.ops import camera_rays
+    from rayzen.integrator import render_rays
+    from rayzen.ops import camera_rays
 
     golden = _golden("demo_reference_800x600.npz")
     cfg = RenderConfig(width=800, height=600, spp=1, max_bounces=5,

@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from rayzen_tpu.config import RenderConfig
-from rayzen_tpu.demo import build_small_scene
-from rayzen_tpu.interactive import InteractiveSession
-from rayzen_tpu.renderer import Renderer
+from rayzen.config import RenderConfig
+from rayzen.demo import build_small_scene
+from rayzen.interactive import InteractiveSession
+from rayzen.renderer import Renderer
 
 
 @pytest.fixture(scope="module")
@@ -127,10 +127,10 @@ class TestBatchedFlythrough:
     """render_batch: K scripted frames in one dispatch (lax.scan over stacked
     camera params) must produce exactly the sync loop's frames — same overlay
     state, same key — and count the same rays. The batch is the scanout
-    analog for motion known ahead of time (docs/INTERACTIVE_1080p.md)."""
+    analog for motion known ahead of time."""
 
     def test_batch_matches_sync_loop(self, tmp_path):
-        from rayzen_tpu.renderer import stack_camera_params
+        from rayzen.renderer import stack_camera_params
 
         cfg = RenderConfig(
             width=48, height=32, spp=1, max_bounces=2,

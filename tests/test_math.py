@@ -4,14 +4,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rayzen_tpu.ops.intersect import (
+from rayzen.ops.intersect import (
     T_FAR,
     face_normal,
     moller_trumbore,
     normalize,
     slab_test,
 )
-from rayzen_tpu.ops.shade import (
+from rayzen.ops.shade import (
     fresnel_schlick,
     hemisphere_direction,
     reflect,

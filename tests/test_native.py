@@ -4,10 +4,10 @@ exactly the same arrays as the numpy reference implementations."""
 import numpy as np
 import pytest
 
-from rayzen_tpu import procedural
-from rayzen_tpu.accel import native
-from rayzen_tpu.accel.builder import build_blas, build_tlas
-from rayzen_tpu.mesh import save_obj
+from rayzen import procedural
+from rayzen.accel import native
+from rayzen.accel.builder import build_blas, build_tlas
+from rayzen.mesh import save_obj
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native runtime unavailable (no compiler)"
@@ -92,7 +92,7 @@ class TestObjParity:
         )
         verts = native.parse_obj_file(str(p))
         assert verts is not None and verts.shape == (1, 3, 3)
-        from rayzen_tpu.mesh import parse_obj
+        from rayzen.mesh import parse_obj
 
         py = parse_obj(p.read_text())
         np.testing.assert_allclose(verts, py.vertices, rtol=0, atol=0)

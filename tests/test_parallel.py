@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rayzen_tpu.config import RenderConfig
-from rayzen_tpu.integrator import render_radiance
-from rayzen_tpu.parallel import make_mesh, render_radiance_sharded
+from rayzen.config import RenderConfig
+from rayzen.integrator import render_radiance
+from rayzen.parallel import make_mesh, render_radiance_sharded
 
 
 @pytest.fixture(scope="module")
@@ -62,7 +62,7 @@ def test_sharded_under_jit(small_scene, cfg, small_camera, small_arrays):
 def test_sharded_ray_stats(small_scene, cfg, small_camera, small_arrays):
     # the sharded path must report REAL aggregate ray counts (psum over chips),
     # equal to the single-device count for the identical computation
-    from rayzen_tpu.integrator import render_radiance_with_stats
+    from rayzen.integrator import render_radiance_with_stats
 
     _, rays_single = render_radiance_with_stats(small_arrays, small_camera, cfg)
     img, rays_sharded = render_radiance_sharded(
@@ -73,10 +73,10 @@ def test_sharded_ray_stats(small_scene, cfg, small_camera, small_arrays):
 
 
 def test_pallas_interpret_inside_shard_map(small_scene, small_camera, small_arrays):
-    # the deployment config is Pallas kernels under shard_map; run the kernels
-    # (interpret mode on CPU) inside the 8-device mesh and match the XLA path
+    # the GPU config is the Pallas walk under shard_map; run it (interpret
+    # mode on CPU) inside the 8-device mesh and match the XLA path
     cfg_x = RenderConfig(width=32, height=16, spp=1, max_bounces=2, kernels="xla")
-    cfg_p = cfg_x.replace(kernels="pallas-bvh2")
+    cfg_p = cfg_x.replace(kernels="walk")
     base = np.asarray(
         render_radiance_sharded(small_arrays, small_camera, cfg_x, make_mesh(8))
     )
@@ -86,15 +86,16 @@ def test_pallas_interpret_inside_shard_map(small_scene, small_camera, small_arra
     assert np.abs(kern - base).max() < 1e-5
 
 
-def test_megakernel_inside_shard_map(small_scene, small_camera, small_arrays):
-    # the TPU default is the full-sample megakernel; it must also run inside
-    # shard_map on each chip's ray tile (interpret mode here) and match XLA
-    cfg_x = RenderConfig(width=32, height=16, spp=1, max_bounces=2, kernels="xla")
-    cfg_m = cfg_x.replace(kernels="pallas")
-    base = np.asarray(
-        render_radiance_sharded(small_arrays, small_camera, cfg_x, make_mesh(8))
+def test_walk_ray_stats_inside_shard_map(small_scene, small_camera, small_arrays):
+    # the walk's ray counts aggregate over the mesh like the XLA path's, at the
+    # full bounce budget with Russian roulette active
+    cfg = RenderConfig(width=32, height=16, spp=1, max_bounces=5, kernels="walk")
+    img, rays = render_radiance_sharded(
+        small_arrays, small_camera, cfg, make_mesh(4), with_stats=True
     )
-    mega = np.asarray(
-        render_radiance_sharded(small_arrays, small_camera, cfg_m, make_mesh(8))
+    base, rays_x = render_radiance_sharded(
+        small_arrays, small_camera, cfg.replace(kernels="xla"), make_mesh(4),
+        with_stats=True,
     )
-    assert np.abs(mega - base).max() < 1e-4
+    assert np.abs(np.asarray(img) - np.asarray(base)).max() < 1e-5
+    assert int(rays) == int(rays_x) > 0

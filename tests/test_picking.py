@@ -4,10 +4,10 @@ mode, main.cpp:502-552)."""
 import numpy as np
 import jax.numpy as jnp
 
-from rayzen_tpu import RenderConfig, pack_scene
-from rayzen_tpu.accel.builder import build_blas, load_bvh, save_bvh
-from rayzen_tpu.demo import build_small_scene
-from rayzen_tpu.picking import pick
+from rayzen import RenderConfig, pack_scene
+from rayzen.accel.builder import build_blas, load_bvh, save_bvh
+from rayzen.demo import build_small_scene
+from rayzen.picking import pick
 
 
 def test_pick_center_and_sky(small_scene, small_arrays, small_camera):

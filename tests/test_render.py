@@ -6,14 +6,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rayzen_tpu import Material, RenderConfig, Scene, GameObject, procedural
-from rayzen_tpu import transforms as tf
-from rayzen_tpu.demo import build_small_scene, demo_camera
-from rayzen_tpu.integrator import render_radiance
-from rayzen_tpu.light import Light
-from rayzen_tpu.ops.shade import shadow_visibility, sky_color
-from rayzen_tpu.packing import world_geometry
-from rayzen_tpu.packing import pack_scene
+from rayzen import Material, RenderConfig, Scene, GameObject, procedural
+from rayzen import transforms as tf
+from rayzen.demo import build_small_scene, demo_camera
+from rayzen.integrator import render_radiance
+from rayzen.light import Light
+from rayzen.ops.shade import shadow_visibility, sky_color
+from rayzen.packing import world_geometry
+from rayzen.packing import pack_scene
 
 
 def cam_params(scene):
@@ -251,7 +251,7 @@ class TestSky:
 
 
 class TestLeafSize:
-    @pytest.mark.parametrize("kernels", ["xla", "pallas-bvh2"])
+    @pytest.mark.parametrize("kernels", ["xla", "walk"])
     def test_leaf_size_8_matches_brute(self, small_scene, kernels):
         # leaf_size is a documented knob; inlined leaf tables must carry ALL
         # leaf triangles, not just the first 4 (regression: advisor r1)

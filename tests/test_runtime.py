@@ -8,20 +8,20 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rayzen_tpu.cache import (
+from rayzen.cache import (
     cached_pack_scene,
     load_scene_arrays,
     save_scene_arrays,
 )
-from rayzen_tpu.config import RenderConfig
-from rayzen_tpu.demo import build_small_scene
-from rayzen_tpu.image_io import read_ppm, ssim, to_uint8, write_png, write_ppm
-from rayzen_tpu.ops import rng as rng_mod
-from rayzen_tpu.overlay import apply_overlays, blas_branch_boxes, hsv2rgb
-from rayzen_tpu.packing import pack_scene
-from rayzen_tpu.preview import render_preview
-from rayzen_tpu.profiler import FrameProfiler
-from rayzen_tpu.renderer import Renderer
+from rayzen.config import RenderConfig
+from rayzen.demo import build_small_scene
+from rayzen.image_io import read_ppm, ssim, to_uint8, write_png, write_ppm
+from rayzen.ops import rng as rng_mod
+from rayzen.overlay import apply_overlays, blas_branch_boxes, hsv2rgb
+from rayzen.packing import pack_scene
+from rayzen.preview import render_preview
+from rayzen.profiler import FrameProfiler
+from rayzen.renderer import Renderer
 
 
 @pytest.fixture(scope="module")
@@ -88,7 +88,7 @@ class TestRenderer:
         # independent target: same scene at higher spp on a disjoint key
         # stream (rng_key offsets the sample index far past the accum frames)
         tgt_cfg = cfg.replace(accumulate=False, spp=32)
-        from rayzen_tpu.integrator import render_radiance
+        from rayzen.integrator import render_radiance
 
         import jax
         import jax.numpy as jnp
@@ -148,7 +148,7 @@ class TestCache:
         """A second scene sharing a mesh skips its BLAS build via the content-
         hashed disk cache (reference bvh_cache/v2 analog, main.cpp:951-969 —
         but keyed by mesh content so it survives across scenes/processes)."""
-        import rayzen_tpu.packing as packing_mod
+        import rayzen.packing as packing_mod
 
         scene = build_small_scene(32, 24)
         packing_mod._blas_cache.clear()
@@ -325,7 +325,7 @@ class TestProfiler:
 
 class TestCli:
     def test_cli_smoke(self, tmp_path, monkeypatch):
-        from rayzen_tpu.cli import main
+        from rayzen.cli import main
 
         out = str(tmp_path / "o.png")
         rc = main(
@@ -339,7 +339,7 @@ class TestCli:
         assert os.path.exists(out)
 
     def test_cli_preview(self, tmp_path):
-        from rayzen_tpu.cli import main
+        from rayzen.cli import main
 
         out = str(tmp_path / "p.png")
         rc = main(
@@ -357,7 +357,7 @@ class TestCompileFailure:
     def test_compile_failure_falls_back_to_preview(self, tiny_cfg, monkeypatch):
         # a failing path-tracer compile must not deadlock warmup/__init__
         # (reference analog: editor-mode fallback, main.cpp:425-429)
-        import rayzen_tpu.renderer as renderer_mod
+        import rayzen.renderer as renderer_mod
 
         def boom(*a, **k):
             raise RuntimeError("injected compile failure")
@@ -372,6 +372,82 @@ class TestCompileFailure:
         assert img.shape == (cfg.height, cfg.width, 3)
         assert np.isfinite(img).all()
         r.close()
+
+
+    def test_path_tracer_only_raises(self, tiny_cfg, monkeypatch):
+        # with no preview to fall back to, a failed compile is an error
+        import rayzen.renderer as renderer_mod
+
+        def boom(*a, **k):
+            raise RuntimeError("injected compile failure")
+
+        monkeypatch.setattr(renderer_mod, "render_radiance_with_stats", boom)
+        scene = build_small_scene(tiny_cfg.width, tiny_cfg.height)
+        with pytest.raises(RuntimeError, match="compile failed"):
+            Renderer(scene, tiny_cfg.replace(path_tracer_only=True),
+                     use_cache=False)
+
+    def test_offscreen_cli_exits_nonzero(self, tmp_path, monkeypatch):
+        # an offscreen render must not hand in a preview image and exit 0
+        import rayzen.renderer as renderer_mod
+        from rayzen.cli import main
+
+        def boom(*a, **k):
+            raise RuntimeError("injected compile failure")
+
+        monkeypatch.setattr(renderer_mod, "render_radiance_with_stats", boom)
+        out = str(tmp_path / "o.png")
+        rc = main(["--width", "32", "--height", "24", "--bounces", "2",
+                   "--out", out, "--log", "error",
+                   "--cache-dir", str(tmp_path / "cache")])
+        assert rc == 1
+        assert not os.path.exists(out)
+
+
+class TestCompileCache:
+    def test_env_dir_is_left_to_jax(self, monkeypatch, tmp_path):
+        import jax
+
+        from rayzen import cache
+
+        before = jax.config.jax_compilation_cache_dir
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert cache.setup_compile_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == before
+
+    def test_default_dir_inside_the_checkout(self, monkeypatch):
+        import jax
+
+        from rayzen import cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        want = os.path.join(repo, ".rayzen_cache", "xla")
+        assert cache.DEFAULT_COMPILE_CACHE_DIR == want
+        assert cache.setup_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+        assert os.path.isdir(want)
+
+
+    def test_cli_run_writes_cache_where_env_says(self, tmp_path):
+        import subprocess
+        import sys
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
+                   JAX_COMPILATION_CACHE_DIR=str(tmp_path / "xla"),
+                   PYTHONPATH=repo)
+        r = subprocess.run(
+            [sys.executable, "-m", "rayzen", "--width", "16", "--height",
+             "12", "--bounces", "2", "--out", str(tmp_path / "f.png"),
+             "--log", "info", "--path-tracer-only",
+             "--cache-dir", str(tmp_path / "scene")],
+            capture_output=True, text=True, cwd=str(tmp_path), env=env,
+            timeout=600,
+        )
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert os.listdir(tmp_path / "xla"), "no compiled program cached"
+        assert "XLA compilation cache at" not in r.stdout + r.stderr
 
 
 class TestAccumulateFrameZero:

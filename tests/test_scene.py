@@ -3,15 +3,15 @@
 import numpy as np
 import pytest
 
-from rayzen_tpu import procedural, transforms as tf
-from rayzen_tpu.camera import Camera, look_at, perspective
-from rayzen_tpu.config import RenderConfig
-from rayzen_tpu.demo import build_demo_scene
-from rayzen_tpu.light import Light
-from rayzen_tpu.material import Material, pack_materials
-from rayzen_tpu.mesh import Mesh, parse_obj, save_obj
-from rayzen_tpu.packing import instance_world_aabbs, pack_scene
-from rayzen_tpu.scene import GameObject, Scene
+from rayzen import procedural, transforms as tf
+from rayzen.camera import Camera, look_at, perspective
+from rayzen.config import RenderConfig
+from rayzen.demo import build_demo_scene
+from rayzen.light import Light
+from rayzen.material import Material, pack_materials
+from rayzen.mesh import Mesh, parse_obj, save_obj
+from rayzen.packing import instance_world_aabbs, pack_scene
+from rayzen.scene import GameObject, Scene
 
 
 class TestObjLoader:
@@ -219,8 +219,8 @@ class TestLightsMaterials:
 
 class TestSceneHash:
     def test_lights_change_hash(self):
-        from rayzen_tpu.demo import build_small_scene
-        from rayzen_tpu.light import Light
+        from rayzen.demo import build_small_scene
+        from rayzen.light import Light
 
         s = build_small_scene(8, 8)
         h0 = s.geometry_hash()
@@ -228,7 +228,7 @@ class TestSceneHash:
         assert s.geometry_hash() != h0
 
     def test_transforms_do_not_change_hash(self):
-        from rayzen_tpu.demo import build_small_scene
+        from rayzen.demo import build_small_scene
 
         s = build_small_scene(8, 8)
         h0 = s.geometry_hash()
@@ -239,7 +239,7 @@ class TestSceneHash:
 
 class TestMaterialOverride:
     def test_override_changes_shading_only(self):
-        from rayzen_tpu.packing import world_geometry
+        from rayzen.packing import world_geometry
 
         mesh = procedural.cube(0)
         scene = Scene()
